@@ -1,9 +1,9 @@
 """Bayesian neural network regression via NUTS over all weights
 (reference: examples/bnn.py).
 
-TPU notes: the whole network forward is two matmuls batched over
-(chains x data) — a pure MXU workload; vectorized chains make the weight
-tensors (C, H, D) so even a small net saturates the systolic array.
+Performance note: the whole network forward is two matmuls batched over
+(chains x data) — a pure matmul workload; vectorized chains make the weight
+tensors (C, H, D) so even a small net fills the matrix units.
 """
 
 import argparse

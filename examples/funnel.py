@@ -3,7 +3,7 @@
 
 The centered funnel defeats NUTS (step size cannot satisfy both the neck
 and the mouth); ``LocScaleReparam(0)`` rewrites the geometry to a standard
-Gaussian — on TPU this is a pure retracing change, zero runtime cost.
+Gaussian — a pure retracing change, zero runtime cost.
 """
 
 import argparse

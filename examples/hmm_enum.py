@@ -49,7 +49,7 @@ def model(ys):
 def scan_model(ys):
     """Same HMM through the effectful ``scan``: the python loop becomes one
     compiled lax.scan and the enumerated time axis collapses via an
-    associative logmatmulexp chain (O(log T) depth on the MXU) — the form
+    associative logmatmulexp chain (O(log T) depth on the tensor cores) — the form
     that scales to long sequences."""
     probs = numpyro_tpu.sample(
         "trans", dist.Dirichlet(jnp.ones((2, 2))).to_event(1)

@@ -2,9 +2,9 @@
 
 Role parity with the reference's `examples/hmm.py` (semi-supervised
 word-category HMM with a hand-marginalized forward algorithm), rebuilt
-TPU-first: the forward recursion over the unsupervised sequence is an
+Accelerator-first: the forward recursion over the unsupervised sequence is an
 ``lax.associative_scan`` over log-transition matrices (logmatmulexp
-semiring), so the time dimension reduces in O(log T) depth of MXU
+semiring), so the time dimension reduces in O(log T) depth of tensor-core
 contractions instead of a T-step sequential scan — the same machinery
 `contrib.control_flow.scan` uses for enumerated chains.
 

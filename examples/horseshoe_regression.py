@@ -1,10 +1,10 @@
 """Sparse regression with the (regularized) horseshoe prior
 (reference: examples/horseshoe_regression.py).
 
-TPU notes: the global-local scale hierarchy makes the posterior strongly
+Notes: the global-local scale hierarchy makes the posterior strongly
 funnel-shaped, so this is the canonical dense-mass workload — we run NUTS
 with ``dense_mass=True`` so warmup learns the full covariance of the
-unconstrained latents in one (D+k)x(D+k) MXU-friendly matrix.
+unconstrained latents in one (D+k)x(D+k) matmul-friendly matrix.
 """
 
 import argparse

@@ -1,5 +1,5 @@
 """The pyro-api generic interface backed by numpyro_tpu.compat — write
-Pyro-style code, run it on the TPU engine (reference: examples/minipyro.py)."""
+Pyro-style code, run it on the numpyro_tpu engine (reference: examples/minipyro.py)."""
 
 import argparse
 

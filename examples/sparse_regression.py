@@ -10,12 +10,12 @@ then identified from the posterior of the singleton effects theta_i, each
 recovered as a GP conditional at probe points +/- e_i (theorem 5.1 of the
 paper).
 
-TPU-first differences from the reference implementation:
+Accelerator-first differences from the reference implementation:
 - the probe analysis is computed for ALL P dimensions in one batched GP
   conditional per posterior draw (a (2P, N) cross-kernel and one Cholesky
   solve) instead of a per-dimension Python loop;
 - solves use Cholesky factorization, never an explicit matrix inverse —
-  fewer FLOPs, better conditioning, and triangular solves map onto the MXU.
+  fewer FLOPs, better conditioning, and triangular solves map onto the tensor cores.
 """
 
 import argparse

@@ -1,9 +1,9 @@
-"""numpyro_tpu — a TPU-native probabilistic-programming inference engine.
+"""numpyro_tpu — an accelerator-native probabilistic-programming inference engine.
 
 Brand-new implementation of NumPyro's capabilities (effect-handler model DSL,
 distributions with constraints/transforms, iterative-NUTS/HMC, SVI/autoguides,
-enumeration) architected chain-massive for TPU pod slices: thousands of
-vectorized chains per chip in one XLA program, sharded across device meshes
+enumeration) architected chain-massive: thousands of
+vectorized chains per device in one XLA program, sharded across device meshes
 via jax.sharding, with device-side adaptation and diagnostics.
 """
 

@@ -10,15 +10,15 @@ handlers ride in through the ``substitute_stack`` protocol on the
 ``control_flow`` message.
 
 Time stays the only sequential axis; everything inside one step is one fused
-XLA block, so on TPU a scanned model is a single compiled loop with no
+XLA block, so on an accelerator a scanned model is a single compiled loop with no
 per-step dispatch.
 
 Enumeration over discrete latents inside ``scan`` (the reference's
 ``scan_enum``, numpyro/contrib/control_flow/scan.py:122) is funsor-free and
-TPU-first here: the enumerated Markov chain becomes a stack of per-step
+Accelerator-first here: the enumerated Markov chain becomes a stack of per-step
 transition factors ``M_t[..., cur, prev]`` which is collapsed over time with
 ``lax.associative_scan`` over ``logmatmulexp`` — an O(log T)-depth chain of
-K x K matmuls that runs on the MXU — and the collapsed block enters the
+K x K matmuls that runs on the tensor cores — and the collapsed block enters the
 surrounding enumeration scope as a single ``factor`` site.  Supported scope:
 ``history <= 1`` and one enumerated site per step (the standard HMM layout);
 the final carry keeps its enumeration dim and must not feed downstream

@@ -3,7 +3,7 @@
 Reference surface: numpyro/contrib/einstein/stein_kernels.py:57-465.  Each
 kernel exposes ``compute(rng_key, particles, particle_info, loss_fn) ->
 k(x, y)`` over flattened particle vectors; all pairwise math is batched
-(C, C) VPU/MXU work — the median-bandwidth heuristic is one sort over the
+(C, C) vector/matrix work — the median-bandwidth heuristic is one sort over the
 pairwise-distance matrix.
 """
 

@@ -1,6 +1,6 @@
 """SteinVI / SVGD / ASVGD — particle variational inference.
 
-Fresh TPU-first implementation of the reference engine
+Fresh accelerator-first implementation of the reference engine
 (numpyro/contrib/einstein/steinvi.py:37-760).  The ensemble of guide-param
 particles lives as one ``(num_particles, flat_dim)`` array; the attractive
 (kernelized grad) and repulsive (kernel grad) Stein forces are (P, P)

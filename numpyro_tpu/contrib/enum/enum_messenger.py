@@ -6,7 +6,7 @@ each enumerable sample site is substituted with its full support expanded
 along a fresh *negative* array dim allocated to the LEFT of every plate dim
 (``first_available_dim``).  Downstream log-probs then broadcast against these
 enum dims, and the density engine (infer_util.log_density) eliminates them
-with a logsumexp sum-product contraction.  On TPU the whole enumerated
+with a logsumexp sum-product contraction.  On device the whole enumerated
 density is one batched elementwise/reduction program — no host-side graph
 machinery survives tracing.
 """

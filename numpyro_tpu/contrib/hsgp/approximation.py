@@ -1,6 +1,6 @@
 """HSGP low-rank GP approximations — model fragments usable inside any
 numpyro_tpu model (reference: contrib/hsgp/approximation.py:64-162).  The
-basis matmul phi @ (spd * beta) is a single MXU contraction."""
+basis matmul phi @ (spd * beta) is a single tensor-core contraction."""
 
 from __future__ import annotations
 

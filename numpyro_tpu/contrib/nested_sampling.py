@@ -1,20 +1,20 @@
-"""TPU-native nested sampling (role parity: numpyro/contrib/nested_sampling.py).
+"""Single-program nested sampling (role parity: numpyro/contrib/nested_sampling.py).
 
 The reference wraps the external ``jaxns`` package; this is a from-scratch,
-single-program nested sampler designed for TPU execution instead:
+single-program nested sampler designed for accelerator execution instead:
 
 - the whole run is ONE ``lax.while_loop`` over a statically-shaped dead-point
   buffer, so it jit-compiles once and never leaves the device;
 - live points are replaced in *batches* (``num_delete`` worst points per
   iteration), and each replacement evolves via whitened random-direction
   slice sampling — the K replacement walkers advance in lock-step, so every
-  model evaluation is a (K, ...)-batched call that keeps the VPU/MXU busy;
+  model evaluation is a (K, ...)-batched call that keeps the vector and matrix units busy;
 - sampling happens in the *unconstrained* space (biject_to transforms), with
   the hard-likelihood constraint L > L* enforced inside the slice bracket
   (no unit-cube/icdf requirement, unlike the reference's UniformReparam, so
   any distribution with a ``biject_to``-registered support works);
 - whitening uses the live-set empirical covariance (a Cholesky factor
-  refreshed every iteration — one small MXU matmul per proposal).
+  refreshed every iteration — one small tensor-core matmul per proposal).
 
 Evidence, weighted posterior samples, ESS and the standard H-based logZ
 error estimate come out of the same buffer.

@@ -1,7 +1,7 @@
 """MCMC diagnostics: split-R̂, FFT-based effective sample size, HPDI,
 summary tables.
 
-TPU-first twist vs the reference (numpyro/diagnostics.py): every statistic
+Accelerator-first twist vs the reference (numpyro/diagnostics.py): every statistic
 has a pure-jnp implementation that runs device-side (so cross-host R̂/ESS
 can be computed with collectives on sharded sample buffers, without a
 device->host gather); the printing layer works on whatever is handed to it.

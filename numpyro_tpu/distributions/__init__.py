@@ -1,4 +1,4 @@
-"""numpyro_tpu.distributions — TPU-native distributions library (L1).
+"""numpyro_tpu.distributions — accelerator-native distributions library (L1).
 
 API parity target: numpyro/distributions/__init__.py:114-215. The public
 inventory is declared as a per-module name table and materialised into the

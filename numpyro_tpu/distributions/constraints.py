@@ -1,6 +1,6 @@
 """Constraint objects describing the support of distribution parameters/values.
 
-TPU-native re-design of the constraint system of NumPyro
+Accelerator-native re-design of the constraint system of NumPyro
 (reference: numpyro/distributions/constraints.py:75-760).  A ``Constraint``
 is a lightweight callable returning a boolean feasibility mask; it carries an
 ``event_dim`` (how many rightmost dims make up one constrained event) and can
@@ -9,7 +9,7 @@ produce a feasible prototype value.  Constraints are the keys of the
 HMC/SVI to unconstrained space.
 
 All checks are written in terms of ``jax.numpy`` so they are jit/vmap-safe
-and compile to vectorized VPU code on TPU.
+and compile to vectorized device code.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Continuous distributions.
 
-TPU-first implementations with the same API surface as
+Accelerator-first implementations with the same API surface as
 numpyro/distributions/continuous.py.  Samplers use jax.random primitives
 (threefry counter-based — identical draws regardless of chain layout, the
 property the chain-massive engine relies on for reproducibility across
@@ -957,7 +957,7 @@ def _batch_mahalanobis(bL, bx):
     """Batched squared Mahalanobis distance: x^T (L L^T)^{-1} x.
 
     Solves L y = x with a triangular solve over arbitrary broadcast batch
-    shapes — the MVN hot path, maps to batched trsm on the MXU.
+    shapes — the MVN hot path, maps to batched trsm on the tensor cores.
     """
     if bL.shape[:-1] == bx.shape:
         solve_bL_bx = solve_triangular(bL, bx[..., None], lower=True)
@@ -1141,7 +1141,7 @@ class LowRankMultivariateNormal(Distribution):
     """MVN with covariance = cov_factor @ cov_factor.T + diag(cov_diag).
 
     log_prob uses the Woodbury identity / matrix-determinant lemma so cost is
-    O(D K^2) not O(D^3) — a matmul-dominant form that rides the MXU.
+    O(D K^2) not O(D^3) — a matmul-dominant form that rides the tensor cores.
     """
 
     arg_constraints = {
@@ -1575,7 +1575,7 @@ class WishartCholesky(Distribution):
 # — EulerMaruyama :327, GaussianStateSpace :558, Gompertz :818, MatrixNormal
 # :1443, CAR :1698, RelaxedBernoulliLogits :2268, SoftLaplace :2287,
 # BetaProportion :2535, AsymmetricLaplaceQuantile :2565, ZeroSumNormal :2627,
-# Levy :2978, CirculantNormal :3076).  Implemented TPU-first: dense linear
+# Levy :2978, CirculantNormal :3076).  Implemented accelerator-first: dense linear
 # algebra, lax.scan for recurrences, FFT diagonalization for circulant
 # covariance — no sparse host paths.
 # ---------------------------------------------------------------------------
@@ -1843,7 +1843,7 @@ class MatrixNormal(Distribution):
 
 class CAR(Distribution):
     """Conditional autoregressive distribution — MVN whose precision is
-    structured by a site-adjacency matrix (dense TPU path; precision-based
+    structured by a site-adjacency matrix (dense path; precision-based
     log_prob needs no Cholesky of the full covariance)."""
 
     arg_constraints = {
@@ -1875,7 +1875,7 @@ class CAR(Distribution):
         if is_sparse:
             raise NotImplementedError(
                 "numpyro_tpu CAR uses the dense adjacency path: sparse "
-                "gather/scatter does not map onto the TPU MXU; pass a dense "
+                "gather/scatter does not map onto dense matmuls; pass a dense "
                 "(batched) adjacency matrix."
             )
         if jnp.ndim(loc) == 0:
@@ -2047,7 +2047,7 @@ class GaussianStateSpace(Distribution):
     """Linear-Gaussian state space model z_t = A z_{t-1} + eps_t, treated as
     one event of shape (num_steps, dim).  Because the map eps -> z is
     unit-Jacobian (lower-unitriangular block structure), log_prob is the
-    innovations' MVN density — evaluated fully in parallel on TPU, no scan."""
+    innovations' MVN density — evaluated fully in parallel, no scan."""
 
     arg_constraints = {
         "covariance_matrix": constraints.positive_definite,
@@ -2144,7 +2144,7 @@ class GaussianStateSpace(Distribution):
 class CirculantNormal(Distribution):
     """Multivariate normal with positive-definite circulant covariance,
     diagonalized by the discrete Fourier transform: sampling and log_prob run
-    in O(n log n) via rFFT — the natural TPU-stationary-covariance layout
+    in O(n log n) via rFFT — the natural stationary-covariance layout
     (reference: numpyro/distributions/continuous.py:3076, Wood & Chan 1994)."""
 
     arg_constraints = {

@@ -7,7 +7,7 @@ standard-normal quantiles → correlated-Gaussian density, with the
 independent standard-normal density divided back out.  Unlike the
 reference (which builds a full MultivariateNormal internally), only the
 Cholesky factor is kept and the copula term is computed directly from
-one triangular solve (MXU) — the MVN's mean/covariance machinery is
+one triangular solve — the MVN's mean/covariance machinery is
 never materialized.
 """
 

@@ -2,9 +2,9 @@
 SineBivariateVonMises).
 
 Reference surface: numpyro/distributions/directional.py:80-544.  The
-numerics here are TPU-first rather than transcribed: modified-Bessel
+numerics here are accelerator-first rather than transcribed: modified-Bessel
 log-values are computed for *all* orders at once with a single
-quadrature matmul (MXU-friendly, replaces the reference's 10,001-term
+quadrature matmul (matmul-friendly, replaces the reference's 10,001-term
 log-series), and the projected-normal density uses a radial-moment
 recurrence that works for any event dimension (the reference supports
 only 2 and 3).
@@ -102,7 +102,7 @@ def log_bessel_i_orders(max_order, value, num_points=_QUAD_POINTS):
 
     on a uniform grid.  The even periodic extension of the integrand is
     smooth, so the trapezoid rule converges spectrally; evaluating every
-    order is one ``(batch, n) @ (n, orders)`` matmul — the TPU-native
+    order is one ``(batch, n) @ (n, orders)`` matmul — the accelerator-native
     replacement for the reference's 10,001-term truncated power series
     (numpyro/distributions/directional.py:33-77).
 

@@ -1,6 +1,6 @@
 """Discrete distributions.
 
-TPU-first implementations with the API surface of
+Accelerator-first implementations with the API surface of
 numpyro/distributions/discrete.py, reorganised so each probs/logits twin pair
 shares one base class (the canonical parameterization is whichever the user
 gave; the other is a cached lazy view).  ``enumerate_support`` returns the

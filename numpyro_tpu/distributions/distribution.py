@@ -1,6 +1,6 @@
 """Distribution base class + structural combinators.
 
-TPU-native re-design of the distribution layer (reference:
+Accelerator-native re-design of the distribution layer (reference:
 numpyro/distributions/distribution.py).  Key properties kept because they are
 what make a JAX-first PPL work, re-implemented fresh:
 

@@ -1,6 +1,6 @@
 """Normalizing-flow transforms: IAF and BNAF
 (reference: numpyro/distributions/flows.py).  Both wrap autoregressive nets;
-the forward pass is fused dense math on the MXU, and every forward also
+the forward pass is fused dense math on the tensor cores, and every forward also
 yields the log-Jacobian as an intermediate so ``log_prob`` never re-runs the
 network."""
 

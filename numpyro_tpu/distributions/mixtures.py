@@ -2,7 +2,7 @@
 
 Role parity: numpyro/distributions/mixtures.py:158,263.  ``log_prob`` is a
 logsumexp contraction over the component axis; component selection when
-sampling is a one-hot contraction (an MXU-friendly select — no gather in
+sampling is a one-hot contraction (a matmul-friendly select — no gather in
 the hot path).
 """
 

@@ -1,6 +1,6 @@
 """Bijective transforms + the ``biject_to`` constraint registry.
 
-TPU-native re-design of the transform layer of NumPyro
+Accelerator-native re-design of the transform layer of NumPyro
 (reference: numpyro/distributions/transforms.py:64-1780).  A ``Transform``
 maps a constrained domain to a codomain bijectively and reports
 ``log_abs_det_jacobian``; ``biject_to(constraint)`` returns a transform whose

@@ -328,7 +328,7 @@ class LowerTruncatedPowerLaw(Distribution):
 class DoublyTruncatedPowerLaw(Distribution):
     """Power law x^alpha on [low, high].  The alpha == -1 singularity is
     handled by the masked-branch ("double where") pattern so both branches
-    stay NaN-free under jit and grad — the TPU-friendly alternative to the
+    stay NaN-free under jit and grad — the accelerator-friendly alternative to the
     reference's hand-written custom_jvp pair
     (reference: numpyro/distributions/truncated.py:381)."""
 

@@ -1,11 +1,11 @@
 """Shared numeric helpers for the distributions layer.
 
-TPU-first implementations of the utility surface of
+Accelerator-first implementations of the utility surface of
 numpyro/distributions/util.py — shape promotion, masked scaling, stable
 special-function kernels.  The discrete samplers (binomial, von Mises) are
 designed batched-first: one whole-array rejection loop with per-lane accept
-masks, instead of the reference's per-element vmapped scalar loops — on TPU
-a vmapped scalar `while_loop` serializes, while the masked-lane form keeps
+masks, instead of the reference's per-element vmapped scalar loops — on an
+accelerator a vmapped scalar `while_loop` serializes, while the masked-lane form keeps
 every iteration a full-width vector op.
 """
 

@@ -7,7 +7,7 @@ AutoGuideList, flows, DAIS variants, batched guides.
 
 Chain/particle-massive note: every guide's ``sample_posterior`` vmaps over a
 sample axis inside one program; the packed latent of AutoContinuous is a flat
-(D,) vector so ELBO particles batch as (P, D) matmuls on the MXU.
+(D,) vector so ELBO particles batch as (P, D) matmuls on the tensor cores.
 
 Organisation: site iteration, constrained/unconstrained mapping, sample-axis
 flattening and the DAIS annealing loop are single shared helpers — each
@@ -444,7 +444,7 @@ class AutoDelta(AutoGuide):
 class AutoContinuous(AutoGuide):
     """Base for guides over a single packed unconstrained latent vector
     (reference: autoguide.py:642).  The packed layout is what makes ELBO
-    particles MXU-friendly: (P, D) batched matmuls against guide params."""
+    particles matmul-friendly: (P, D) batched matmuls against guide params."""
 
     def _setup_prototype(self, *args, **kwargs):
         super()._setup_prototype(*args, **kwargs)
@@ -784,7 +784,7 @@ class _FlowGuide(AutoContinuous):
 class AutoIAFNormal(_FlowGuide):
     """Diagonal-Normal base pushed through a stack of Inverse Autoregressive
     Flows over the packed latent (reference: autoguide.py:2202; Kingma et
-    al. 2016).  The flow matmuls batch over ELBO particles on the MXU."""
+    al. 2016).  The flow matmuls batch over ELBO particles on the tensor cores."""
 
     def __init__(
         self,
@@ -1293,7 +1293,7 @@ class AutoSemiDAIS(AutoGuide):
     over the *local* latents inside a subsample plate — the subsample-capable
     sibling of :class:`AutoDAIS` (reference: autoguide.py:1235).
 
-    TPU shape note: the K annealed uncorrected-HMC steps run in one
+    Shape note: the K annealed uncorrected-HMC steps run in one
     ``lax.scan`` over a ``(subsample, D)`` local-latent matrix, so all
     per-datum dynamics are batched elementwise programs with no host loop.
 

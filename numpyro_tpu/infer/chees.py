@@ -7,7 +7,7 @@ chain's U-turn ``while_loop`` runs until the *slowest* chain terminates, so
 per-step cost is the max tree depth over the batch.  ChEES-HMC instead gives
 **every chain the identical number of leapfrog steps per iteration** (a
 Halton-jittered fraction of one learned trajectory length), which is perfect
-SIMD on the MXU, and adapts that trajectory length by gradient ascent on the
+SIMD on the tensor cores, and adapts that trajectory length by gradient ascent on the
 Change-in-the-Estimator-of-the-Expected-Square criterion using statistics
 pooled **across the chain batch** — the more chains, the better (and faster)
 the adaptation.  No reference equivalent (numpyro has no ChEES kernel); the

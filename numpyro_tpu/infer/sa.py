@@ -1,7 +1,7 @@
 """Sample-Adaptive MCMC, panel-batched (role parity: numpyro/infer/sa.py,
 after Zhu 2019 "Sample Adaptive MCMC").
 
-Redesign notes (TPU-first, not a translation):
+Redesign notes (accelerator-first, not a translation):
 
 - **Panels everywhere.** The live-point pool for *all* chains is a single
   ``(C, N, D)`` tensor and one transition advances every chain at once —
@@ -13,7 +13,7 @@ Redesign notes (TPU-first, not a translation):
   (rejection = no write), which keeps the pool buffer donation-friendly.
 - **Rank-one Cholesky batches.** The ``N`` leave-one-out proposal factors
   are produced by three broadcasted rank-one updates over the pool axis —
-  O(N·D²) work that XLA tiles onto the MXU.
+  O(N·D²) work that XLA tiles onto the tensor cores.
 """
 
 from __future__ import annotations

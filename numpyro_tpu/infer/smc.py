@@ -11,7 +11,7 @@ Chopin & Papaspiliopoulos (2020):
 - systematic resampling when ESS < threshold;
 - rejuvenation via a few HMC/random-walk steps at the current temperature.
 
-TPU-first: the particle cloud is one ``(P, D)`` array, every phase
+Accelerator-first: the particle cloud is one ``(P, D)`` array, every phase
 (reweight, resample via a single sorted-uniform gather, rejuvenate) is
 batched over particles in a single program; on a pod slice the particle
 axis shards over the mesh and the resampling normalization is a ``psum``.

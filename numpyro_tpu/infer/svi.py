@@ -1,6 +1,6 @@
 """Stochastic Variational Inference driver.
 
-Fresh implementation of numpyro/infer/svi.py.  TPU-first default: ``run``
+Fresh implementation of numpyro/infer/svi.py.  Accelerator-first default: ``run``
 compiles the whole optimization into one ``lax.scan`` program (the
 reference's progress-bar python loop is the opt-in interactive path).
 """

@@ -1,7 +1,7 @@
 """Masked dense layer (stax-style) — the building block of MADE-type
 autoregressive networks (reference: numpyro/nn/masked_dense.py).  The mask
 is applied to the weight matrix so each output only sees permitted inputs;
-on TPU the masked matmul still runs as one MXU op."""
+the masked matmul still runs as one dense matmul."""
 
 from jax import random
 from jax.nn.initializers import glorot_normal, normal

@@ -2,81 +2,79 @@
 covtype-class workloads (large-N logistic regression under NUTS/HMCECS).
 
 Why this exists: XLA evaluates ``value_and_grad`` of a logistic-regression
-potential as separate forward (X @ w) and backward (rᵀ @ X) passes plus
-several (C, N) elementwise intermediates — ~16x the HBM-roofline cost of
-reading X once.  This op computes the log-likelihood **and** its gradient in
-a single Pallas pass over X tiles: each (D, TILE) block of Xᵀ is read once
-from HBM, the (C, TILE) logits block lives only in VMEM, and both the nll
-reduction and the grad accumulation (r @ X_tileᵀ, an MXU contraction) happen
-before the next tile streams in.
+potential as a forward GEMM (X @ w), a backward GEMM (rᵀ @ X) and several
+(C, N) float32 intermediates written to and read back from device memory —
+for 256 chains at covtype shape that is over 2 GB of traffic per leapfrog
+while X itself is 75 MB.  The ``"split"`` mode's GPU kernel computes the
+log-likelihood **and** its gradient in one pass over X: each tile of rows
+is read once, its (chains, rows) logits block lives only in registers, and
+both the nll reduction and the gradient contraction happen before the next
+tile streams in.
 
 Integration: ``bernoulli_logits_loglik(w, data)`` is a plain differentiable
 scalar function of ``w`` usable inside any model via ``numpyro_tpu.factor``;
-it composes with the chain-massive driver because vmap over chains hits a
-``custom_vmap`` rule that batches chains into the kernel's sublane dim
+it composes with the chain-batched driver because vmap over chains hits a
+``custom_vmap`` rule that batches chains into the kernel's row dimension
 instead of replaying the data pass per chain.
 
 Precision modes (``prepare_glm_data(..., dtype=...)``):
 
-- ``jnp.float32`` (default): exact-f32 model; every MXU contraction runs at
-  HIGHEST precision (multi-pass bf16 emulation of f32 — ~3x the MXU work of
-  a native bf16 pass on v5e).
+- ``jnp.float32`` (default): exact-f32 model, evaluated by XLA at the
+  ambient matmul precision (the MCMC driver traces under ``"highest"``).
 - ``"split"``: the design matrix is stored once in bf16 — that quantized
   matrix IS the model's design matrix, exactly — while ``w`` (which moves
-  every leapfrog step) is carried as an f32-accurate bf16 hi+lo pair packed
-  along the contraction dim, so the forward logits are ONE native-bf16 MXU
-  pass with ~2^-16-relative accuracy *in w*.  The potential stays smooth in
-  ``w`` (energy-conserving trajectories; naive all-bf16 storage breaks this
-  because quantizing w makes the potential piecewise-constant at posterior
-  scale) and the MH accept uses an f32-accurate density, so NUTS samples the
-  bf16-design posterior exactly.  The gradient pass splits the f32 residual
-  the same way (two bf16 passes).  Measured 1.5-1.7x the f32 mode at
-  256-1024 chains on v5e and unlocks 4096-chain panels.
-- ``jnp.bfloat16``: everything bf16, including ``w`` — fastest but the
-  potential's stair-stepping in ``w`` stalls NUTS at high data concentration
-  (kept for diffuse posteriors and experimentation only).
+  every leapfrog step) is carried as an f32-accurate bf16 hi+lo pair, so
+  the forward logits are two native-bf16 tensor-core products with f32
+  accumulation, ~2^-16-relative accurate *in w*.  The potential stays
+  smooth in ``w`` (energy-conserving trajectories; naive all-bf16 storage
+  breaks this because quantizing w makes the potential piecewise-constant
+  at posterior scale) and the MH accept uses an f32-accurate density, so
+  NUTS samples the bf16-design posterior exactly.  The gradient pass splits
+  the f32 residual the same way.  On CUDA devices this mode runs the Pallas
+  kernel below (Triton route); elsewhere XLA evaluates the same model in
+  f32 on the quantized matrix.
+- ``jnp.bfloat16``: everything bf16, including ``w`` — the potential's
+  stair-stepping in ``w`` stalls NUTS at high data concentration (kept for
+  diffuse posteriors and experimentation only).
 """
 
 from __future__ import annotations
 
-
+import functools
 
 import jax
 import jax.numpy as jnp
 from jax.custom_batching import custom_vmap
+from jax.sharding import PartitionSpec as P
 
 __all__ = ["BernoulliLogitsGLMData", "bernoulli_logits_loglik", "prepare_glm_data"]
 
-_TILE = 4096
-_LANE = 128
-# data layout pads N to multiples of 32768 so the kernels can pick any
-# power-of-two tile up to that (grid-step count, not bandwidth, bounds the
-# kernel's serial latency); cap the per-grid-step X block at ~4 MB
-# (double-buffered by the pipeline)
-_N_PAD = 32768
-_TILE_BYTES_CAP = 4 * 1024 * 1024
-
-# MXU precision for f32-stored X: HIGHEST (6-pass, exact f32) by default.
-# HIGH (3-pass bf16) costs half the MXU passes at ~7e-4 relative gradient
-# error — measured insufficiently different on this HBM-bound kernel to
-# justify the accuracy loss, but kept settable for experimentation.
-_F32_PRECISION = jax.lax.Precision.HIGHEST
+# rows are padded to a multiple of this (zero rows contribute a constant
+# softplus(0) to the nll, corrected exactly, and nothing to the gradient)
+_N_PAD = 4096
+# kernel tiling: rows per tile, chains per program, and the number of
+# programs along N the grid aims for (a few waves over the H100's 132 SMs)
+_BLOCK_N = 128
+_MAX_BLOCK_C = 64
+_TARGET_PROGRAMS = 528
+_NUM_WARPS = 4
+_NUM_STAGES = 3
 
 
 class BernoulliLogitsGLMData:
-    """Pre-laid-out design matrix for the fused kernel: Xᵀ padded to
-    (D_pad, N_pad) with the observation row padded to match.  Build once via
-    :func:`prepare_glm_data`; reused across every leapfrog step."""
+    """Pre-laid-out design matrix for the fused op: X padded to
+    (N_pad, D_pad) with the observation vector padded to match.  Build once
+    via :func:`prepare_glm_data`; reused across every leapfrog step."""
 
-    def __init__(self, x_t, y_row, n, d, dtype):
-        self.x_t = x_t  # (D_pad, N_pad)
-        self.y_row = y_row  # (1, N_pad) float
+    def __init__(self, x, y, n, d, dtype):
+        self.x = x  # (N_pad, D_pad)
+        self.y = y  # (N_pad,) float32
         self.n = n
         self.d = d
         self.dtype = dtype
 
     def tree_flatten(self):
-        return (self.x_t, self.y_row), (self.n, self.d, self.dtype)
+        return (self.x, self.y), (self.n, self.d, self.dtype)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
@@ -90,8 +88,13 @@ jax.tree_util.register_pytree_node(
 )
 
 
+def _d_pad(d):
+    # a power of two of at least 16: Triton's dot takes no smaller operand
+    return max(16, 1 << (d - 1).bit_length())
+
+
 def prepare_glm_data(X, y, dtype=jnp.float32):
-    """Lay out (N, D) design matrix + (N,) binary obs for the fused kernel.
+    """Lay out (N, D) design matrix + (N,) binary obs for the fused op.
 
     :param dtype: storage/precision mode for X — ``jnp.float32`` (exact-f32
         model), ``"split"`` (bf16-stored design matrix with f32-accurate
@@ -100,14 +103,13 @@ def prepare_glm_data(X, y, dtype=jnp.float32):
         high data concentration, experimentation only).
     """
     N, D = X.shape
-    d_pad = max(8 * ((D + 7) // 8), 8)
     n_pad = _N_PAD * ((N + _N_PAD - 1) // _N_PAD)
     store = jnp.bfloat16 if dtype == "split" else dtype
-    x_t = jnp.zeros((d_pad, n_pad), dtype=store)
-    x_t = x_t.at[:D, :N].set(X.T.astype(store))
-    y_row = jnp.zeros((1, n_pad), dtype=jnp.float32)
-    y_row = y_row.at[0, :N].set(y.astype(jnp.float32))
-    return BernoulliLogitsGLMData(x_t, y_row, N, D, dtype)
+    x = jnp.zeros((n_pad, _d_pad(D)), dtype=store)
+    x = x.at[:N, :D].set(X.astype(store))
+    y_pad = jnp.zeros((n_pad,), dtype=jnp.float32)
+    y_pad = y_pad.at[:N].set(y.astype(jnp.float32))
+    return BernoulliLogitsGLMData(x, y_pad, N, D, dtype)
 
 
 def split_hi_lo(w):
@@ -118,306 +120,171 @@ def split_hi_lo(w):
     ELIDED by XLA's convert simplifier under jit (the f32->bf16->f32
     round-trip is treated as identity), silently zeroing ``lo`` — the split
     potential then stair-steps at bf16-w resolution and NUTS adaptation
-    collapses (round-3 bench regression: step size 1e-4, every tree at the
-    depth cap, 25x wall-time).  ``lax.reduce_precision`` is the dedicated,
-    non-elidable rounding op.
+    collapses (step size 1e-4, every tree at the depth cap).
+    ``lax.reduce_precision`` is the dedicated, non-elidable rounding op.
     """
     w_hi_f = jax.lax.reduce_precision(w, exponent_bits=8, mantissa_bits=7)
     return w_hi_f.astype(jnp.bfloat16), (w - w_hi_f).astype(jnp.bfloat16)
 
 
 def _xla_fused(w_pad, data):
-    """Reference/fallback implementation (CPU, or interpret mode)."""
-    x_t = data.x_t.astype(jnp.float32)
-    logits = w_pad @ x_t  # (B, N_pad)
-    y = data.y_row
-    # padded columns produce logits 0 -> constant softplus(0); corrected below
+    """The op in plain XLA: the reference, and the implementation for the
+    f32 and bf16 store modes and for non-CUDA backends."""
+    x = data.x.astype(jnp.float32)
+    logits = w_pad @ x.T  # (B, N_pad)
+    y = data.y
+    # padded rows produce logits 0 -> constant softplus(0); corrected below
     nll = jnp.sum(jax.nn.softplus(logits) - y * logits, axis=-1)
-    n_pad = x_t.shape[1]
+    n_pad = x.shape[0]
     nll = nll - (n_pad - data.n) * jnp.log(2.0)
     r = jax.nn.sigmoid(logits) - y
-    # padded columns of x_t are zero -> no gradient contribution
-    grad = r @ x_t.T
+    # padded rows of x are zero -> no gradient contribution
+    grad = r @ x
     return -nll, -grad
 
 
-def _pallas_split(w_pad, data):
-    """Split-precision pass: bf16-stored X, f32-accurate hi+lo-packed w.
+def _block_c(b):
+    return min(_MAX_BLOCK_C, max(16, 1 << (b - 1).bit_length()))
 
-    Forward: ``[w_hi | w_lo] @ [x ; x]`` — a single full-contraction-width
-    native-bf16 MXU pass equal to ``(w_hi + w_lo) @ x`` with f32
-    accumulation.  Transcendentals are shared (one exp + one log1p serve
-    both the nll and the residual — the VPU is ~40% of this kernel at 4096
-    chains).  Gradient: the f32 residual is split hi+lo the same way (two
-    bf16 passes).  The density is f32-accurate for the bf16-quantized
-    design matrix, i.e. NUTS samples that model exactly.
-    """
+
+def _split_kernel(whi_ref, wlo_ref, x_ref, y_ref, nll_ref, g_ref, *,
+                  tiles_per_prog, num_tiles):
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+
+    # operands are bf16: pin the one-pass tensor-core product so that an
+    # ambient default_matmul_precision("highest") cannot leak in
+    dot = functools.partial(pl.dot, precision=jax.lax.Precision.DEFAULT)
+    w_hi = whi_ref[...]
+    w_lo = wlo_ref[...]
+    first = pl.program_id(1) * tiles_per_prog
+    last = jnp.minimum(first + tiles_per_prog, num_tiles)
+
+    def body(t, carry):
+        nll_acc, g_acc = carry
+        rows = pl.ds(pl.multiple_of(t * _BLOCK_N, _BLOCK_N), _BLOCK_N)
+        x = x_ref[rows, :]  # (BN, D) bf16
+        y = y_ref[rows][None, :]  # (1, BN) f32
+        # (w_hi + w_lo) · x with f32 accumulation
+        logits = dot(w_hi, x, trans_b=True) + dot(w_lo, x, trans_b=True)
+        # one exp serves both the nll and the residual
+        e = jnp.exp(-jnp.abs(logits))
+        nll = jnp.maximum(logits, 0.0) + jnp.log1p(e) - y * logits
+        r = jnp.where(logits >= 0, 1.0, e) / (1.0 + e) - y
+        # hi/lo residual split by round-to-nearest-even on the raw bits
+        # (reduce_precision has no lowering on this route; |r| <= 1 and
+        # finite, so no NaN/overflow edge cases)
+        bits = jax.lax.bitcast_convert_type(r, jnp.uint32)
+        rne = bits + jnp.uint32(0x7FFF) + ((bits >> 16) & jnp.uint32(1))
+        r_hi_f = jax.lax.bitcast_convert_type(
+            rne & jnp.uint32(0xFFFF0000), jnp.float32
+        )
+        r_hi = r_hi_f.astype(jnp.bfloat16)
+        r_lo = (r - r_hi_f).astype(jnp.bfloat16)
+        g = dot(r_hi, x) + dot(r_lo, x)  # (BC, D)
+        # per-tile row sums stay near BN * 0.3 in magnitude, and the
+        # per-program total near tiles_per_prog times that: no
+        # high-magnitude float32 sum happens in the kernel (the MH accept
+        # needs the potential's absolute error well below 1)
+        return nll_acc + jnp.sum(nll, axis=1), g_acc + g
+
+    bc, d = w_hi.shape
+    nll_acc, g_acc = jax.lax.fori_loop(
+        first,
+        last,
+        body,
+        (jnp.zeros((bc,), jnp.float32), jnp.zeros((bc, d), jnp.float32)),
+    )
+    nll_ref[...] = nll_acc
+    g_ref[...] = g_acc
+
+
+def _pallas_split(w_pad, data, interpret=False):
+    """Split-precision pass on the Triton route: bf16-stored X, f32-accurate
+    hi+lo w.  The grid is (chain block, N range); each program loops over
+    its row tiles and writes (programs, C) nll and (programs, C, D) gradient
+    partials, which XLA sums."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
 
     b_pad, d_pad = w_pad.shape
-    n_pad = data.x_t.shape[1]
-    # measured VMEM envelope on v5e for this kernel's temps: keep the
-    # (B, inner) f32 logits block at <= 4 MB (8 MB blocks fail to compile)
-    inner = _TILE
-    while b_pad * inner * 4 > 4 * 1024 * 1024 and inner > 128:
-        inner //= 2
-    # grid-step overhead dominates the kernel's SERIAL latency inside the
-    # leapfrog while_loop (~9us per grid step measured: a 142-step grid is
-    # 1.28 ms/call while the X pass itself is ~80us).  Each grid step
-    # therefore processes several VMEM-sized sub-blocks with a static
-    # inner loop — fewer grid steps, same VMEM residency per sub-block.
-    import os as _os
-
-    # measured on v5e at 256 chains: subs=2 is the sweet spot (5503 vs
-    # 5153 ESS/s/chip at subs=1-legacy; 4491 at subs=4, 4166 at subs=8 —
-    # larger blocks trade grid-step overhead for coarser DMA/compute
-    # overlap)
-    subs_cap = int(_os.environ.get("NUMPYRO_TPU_GLM_SUBS", "2"))
-    subs = 1
-    while (
-        subs < subs_cap
-        and inner * subs * 2 < _TILE_BYTES_CAP // max(d_pad * 2, 1)
-        and n_pad % (inner * subs * 2) == 0
-    ):
-        subs *= 2
-    tile = inner * subs
-    num_tiles = n_pad // tile
-
-    def kernel(w_ref, x_ref, y_ref, pe_ref, g_ref, pe_slots, acc_g):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            pe_slots[:, :] = jnp.zeros_like(pe_slots)
-            acc_g[:, :] = jnp.zeros_like(acc_g)
-
-        g_total = None
-        for s in range(subs):
-            x = x_ref[:, s * inner : (s + 1) * inner]  # (D, inner) bf16
-            x2 = jnp.concatenate([x, x], axis=0)  # (2D, inner): [x ; x]
-            # pin DEFAULT precision: operands are already bf16 (native
-            # single MXU pass); the driver's ambient
-            # default_matmul_precision("highest") must not leak in —
-            # Mosaic rejects fp32 contract precision on bf16
-            logits = jnp.dot(
-                w_ref[:, :],
-                x2,
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT,
-            )  # (B, inner) f32
-            y = y_ref[0, s * inner : (s + 1) * inner][None, :]
-            e = jnp.exp(-jnp.abs(logits))
-            nll = jnp.maximum(logits, 0.0) + jnp.log1p(e) - y * logits
-            # PE accumulation precision: the full nll sum at covtype scale
-            # reaches ~2e5 while each term is ~0.3, and an in-kernel f32
-            # reduction of that magnitude costs ~±1.3 absolute PE error —
-            # the MH accept then sees exp(-|dE_err|) ≈ 0.25 and dual
-            # averaging collapses the step size (measured: step 1e-4,
-            # every tree at the depth cap).  So NO high-magnitude sum ever
-            # happens in-kernel: everything folds into a (B, 128)
-            # lane-partial accumulator (every in-kernel add stays at
-            # <= total/128 magnitude) and the single 128->1 reduction runs
-            # OUTSIDE in XLA on the kernel output.
-            for k in range(inner // _LANE):
-                pe_slots[:, :] += nll[:, k * _LANE : (k + 1) * _LANE]
-            sig = jnp.where(logits >= 0, 1.0, e) / (1.0 + e)
-            r = sig - y  # (B, inner) f32
-            # hi/lo residual split.  A plain f32->bf16->f32 round-trip is
-            # ELIDED by the compiler's convert simplifier (silently
-            # zeroing the lo half — observed under jit), and
-            # reduce_precision has no Pallas lowering, so
-            # round-to-nearest-even to bf16 is done on the raw bits (r is
-            # finite and |r|<=1: no NaN/overflow edge cases).
-            bits = jax.lax.bitcast_convert_type(r, jnp.uint32)
-            rne = bits + jnp.uint32(0x7FFF) + ((bits >> 16) & jnp.uint32(1))
-            r_hi_f = jax.lax.bitcast_convert_type(
-                rne & jnp.uint32(0xFFFF0000), jnp.float32
-            )
-            r_hi = r_hi_f.astype(jnp.bfloat16)
-            r_lo = (r - r_hi_f).astype(jnp.bfloat16)
-            g = jax.lax.dot_general(
-                r_hi,
-                x,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT,
-            )
-            g += jax.lax.dot_general(
-                r_lo,
-                x,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.DEFAULT,
-            )
-            g_total = g if g_total is None else g_total + g
-        acc_g[:, :] += g_total
-
-        @pl.when(i == num_tiles - 1)
-        def _():
-            pe_ref[:, :] = pe_slots[:, :]
-            g_ref[:, :] = acc_g[:, :]
-
+    n_pad = data.x.shape[0]
+    bc = _block_c(b_pad)
+    c_blocks = b_pad // bc
+    num_tiles = n_pad // _BLOCK_N
+    n_progs = max(1, min(num_tiles, _TARGET_PROGRAMS // c_blocks))
+    tiles_per_prog = -(-num_tiles // n_progs)
+    n_progs = -(-num_tiles // tiles_per_prog)
     w_hi, w_lo = split_hi_lo(w_pad)
-    wpk = jnp.concatenate([w_hi, w_lo], axis=1)  # (B, 2D) bf16
-
-    pe_pad, grad_pad = pl.pallas_call(
+    kernel = functools.partial(
+        _split_kernel, tiles_per_prog=tiles_per_prog, num_tiles=num_tiles
+    )
+    nll_part, g_part = pl.pallas_call(
         kernel,
-        grid=(num_tiles,),
+        grid=(c_blocks, n_progs),
         in_specs=[
-            pl.BlockSpec(
-                (b_pad, 2 * d_pad), lambda i: (0, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((d_pad, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
+            pl.BlockSpec((bc, d_pad), lambda c, s: (c, 0)),
+            pl.BlockSpec((bc, d_pad), lambda c, s: (c, 0)),
+            pl.BlockSpec((n_pad, d_pad), lambda c, s: (0, 0)),
+            pl.BlockSpec((n_pad,), lambda c, s: (0,)),
         ],
         out_specs=[
-            pl.BlockSpec((b_pad, _LANE), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_pad, d_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, bc), lambda c, s: (s, c)),
+            pl.BlockSpec((None, bc, d_pad), lambda c, s: (s, c, 0)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((b_pad, _LANE), jnp.float32),
-            jax.ShapeDtypeStruct((b_pad, d_pad), jnp.float32),
+            jax.ShapeDtypeStruct((n_progs, b_pad), jnp.float32),
+            jax.ShapeDtypeStruct((n_progs, b_pad, d_pad), jnp.float32),
         ],
-        scratch_shapes=[
-            pltpu.VMEM((b_pad, _LANE), jnp.float32),
-            pltpu.VMEM((b_pad, d_pad), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b_pad * d_pad * n_pad,
-            bytes_accessed=d_pad * n_pad * 2,
-            transcendentals=2 * b_pad * n_pad,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=_NUM_STAGES
         ),
-    )(wpk, data.x_t, data.y_row)
+        interpret=interpret,
+        name="glm_split_loglik_grad",
+    )(w_hi, w_lo, data.x, data.y)
+    nll = jnp.sum(nll_part, axis=0) - (n_pad - data.n) * jnp.log(2.0)
+    return -nll, -jnp.sum(g_part, axis=0)
 
-    # final lane reduction in XLA (hierarchical, low error — in contrast to
-    # the in-kernel serial alternative, see kernel comment)
-    nll = jnp.sum(pe_pad, axis=-1) - (n_pad - data.n) * jnp.log(2.0)
-    return -nll, -grad_pad
 
-
-def _pallas_fused(w_pad, data):
-    """One pass over Xᵀ tiles computing (loglik, dloglik/dw) for all chains."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    b_pad, d_pad = w_pad.shape
-    n_pad = data.x_t.shape[1]
-    # adaptive tile: keep the (B, T) logits block within a VMEM budget as
-    # the chain count grows
-    # measured envelope on TPU v5: (512, 4096) f32 logits blocks are the
-    # sweet spot; beyond 512 chains shrink tiles hard to stay inside VMEM
-    budget = 8 * 1024 * 1024 if b_pad <= 512 else 2 * 1024 * 1024
-    if data.x_t.dtype != jnp.float32:
-        # mixed-precision staging temps (bf16 block + f32 casts) eat into
-        # scoped VMEM: leave headroom by shrinking the logits block
-        budget = min(budget, 6 * 1024 * 1024)
-    tile = _TILE
-    while b_pad * tile * 4 > budget and tile > 128:
-        tile //= 2
-    num_tiles = n_pad // tile
-    x_dtype = data.x_t.dtype
-
-    def kernel(w_ref, x_ref, y_ref, pe_ref, g_ref, pe_slots, acc_g):
-        i = pl.program_id(0)
-
-        @pl.when(i == 0)
-        def _():
-            pe_slots[:, :] = jnp.zeros_like(pe_slots)
-            acc_g[:, :] = jnp.zeros_like(acc_g)
-
-        w = w_ref[:, :]
-        if x_dtype != jnp.float32:
-            w = w.astype(x_dtype)
-        # f32 storage: HIGHEST keeps true-f32 logits (default precision
-        # silently truncates f32 operands to one bf16 pass, and those
-        # gradients stall NUTS adaptation at covtype concentration).
-        # bf16 storage: operands are already bf16 — take the native
-        # single-pass MXU path with f32 accumulation.
-        mxu_precision = (
-            _F32_PRECISION
-            if x_dtype == jnp.float32
-            else jax.lax.Precision.DEFAULT
+def _fused_chains(w, data):
+    """(B, D) chains -> (loglik (B,), grad (B, D)) on one device's chains."""
+    b, d = w.shape
+    d_pad = data.x.shape[1]
+    b_pad = _block_c(b) * (-(-b // _block_c(b)))
+    w_pad = jnp.zeros((b_pad, d_pad), dtype=jnp.float32)
+    w_pad = w_pad.at[:b, :d].set(w)
+    if data.dtype == "split":
+        # branch on the LOWERING platform (not the default backend): only
+        # the selected branch is lowered, so a CPU-targeted jit on a GPU
+        # host takes the XLA path
+        ll, g = jax.lax.platform_dependent(
+            w_pad, data, cuda=_pallas_split, default=_xla_fused
         )
-        logits = jnp.dot(
-            w,
-            x_ref[:, :],
-            preferred_element_type=jnp.float32,
-            precision=mxu_precision,
-        )
-        y = y_ref[0, :][None, :]  # (1, T)
-        nll = jax.nn.softplus(logits) - y * logits  # (B, T)
-        # low-magnitude lane-partial PE accumulation (see _pallas_split)
-        for k in range(tile // _LANE):
-            pe_slots[:, :] += nll[:, k * _LANE : (k + 1) * _LANE]
-        r = jax.nn.sigmoid(logits) - y  # (B, T)
-        if x_dtype != jnp.float32:
-            r = r.astype(x_dtype)
-        # (B, T) x (D, T) contracting T -> (B, D), f32 accumulation
-        acc_g[:, :] += jax.lax.dot_general(
-            r,
-            x_ref[:, :],
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=mxu_precision,
-        )
-
-        @pl.when(i == num_tiles - 1)
-        def _():
-            pe_ref[:, :] = pe_slots[:, :]
-            g_ref[:, :] = acc_g[:, :]
-
-    pe_pad, grad_pad = pl.pallas_call(
-        kernel,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec((b_pad, d_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((d_pad, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((b_pad, _LANE), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((b_pad, d_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((b_pad, _LANE), jnp.float32),
-            jax.ShapeDtypeStruct((b_pad, d_pad), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((b_pad, _LANE), jnp.float32),
-            pltpu.VMEM((b_pad, d_pad), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * b_pad * d_pad * n_pad,
-            bytes_accessed=d_pad * n_pad * data.x_t.dtype.itemsize,
-            transcendentals=2 * b_pad * n_pad,
-        ),
-    )(w_pad, data.x_t, data.y_row)
-
-    nll = jnp.sum(pe_pad, axis=-1) - (n_pad - data.n) * jnp.log(2.0)
-    return -nll, -grad_pad
+    else:
+        ll, g = _xla_fused(w_pad, data)
+    return ll[:b], g[:b, :d]
 
 
 def _fused_batched(w, data):
-    """(B, D) chains -> (loglik (B,), grad (B, D)); pads to kernel layout."""
-    b, d = w.shape
-    d_pad = data.x_t.shape[0]
-    # bf16 MXU operands tile at (16, 128) sublanes x lanes: the split mode's
-    # packed-w lhs is bf16, so its chain padding must be a multiple of 16
-    b_mult = 16 if data.dtype == "split" else 8
-    b_pad = max(b_mult * ((b + b_mult - 1) // b_mult), b_mult)
-    w_pad = jnp.zeros((b_pad, d_pad), dtype=jnp.float32)
-    w_pad = w_pad.at[:b, :d].set(w)
-    # branch on the LOWERING platform (not the default backend): a
-    # CPU-targeted jit on a TPU host must take the XLA path, and only the
-    # selected branch is lowered per platform
-    ll, g = jax.lax.platform_dependent(
-        w_pad,
-        data,
-        tpu=_pallas_split if data.dtype == "split" else _pallas_fused,
-        default=_xla_fused,
+    """Chain-batched op.  Under a context mesh with a ``chains`` axis (the
+    ``chain_method="parallel"`` driver sets one), each device evaluates its
+    own chains against a replicated X: a Pallas custom call is opaque to
+    GSPMD, which would otherwise gather every chain onto every device."""
+    mesh = jax.sharding.get_abstract_mesh()
+    n_shards = (
+        mesh.shape["chains"] if "chains" in mesh.axis_names else 1
     )
-    return ll[:b], g[:b, :d]
+    if n_shards > 1 and w.shape[0] % n_shards == 0:
+        spec = P("chains")
+        return jax.shard_map(
+            _fused_chains,
+            mesh=mesh,
+            in_specs=(spec, P()),
+            out_specs=(spec, spec),
+            axis_names={"chains"},
+            check_vma=False,
+        )(w, data)
+    return _fused_chains(w, data)
 
 
 @custom_vmap
@@ -428,7 +295,7 @@ def _fused_single(w, data):
 
 @_fused_single.def_vmap
 def _fused_vmap_rule(axis_size, in_batched, w, data):
-    # chains batch into the kernel's sublane dim: one data pass for ALL chains
+    # chains batch into the kernel's row dim: one data pass for ALL chains
     assert in_batched[0]
     ll, g = _fused_batched(w, data)
     return (ll, g), (True, True)

@@ -1,6 +1,6 @@
 """Optimizers for SVI.
 
-TPU-first design decision (vs numpyro/optim.py which wraps
+Accelerator-first design decision (vs numpyro/optim.py which wraps
 jax.example_libraries.optimizers): **optax is the native backend** — every
 optimizer here is an optax GradientTransformation wrapped in the thin
 ``_NumPyroOptim`` API (init/update/eval_and_update/get_params) that SVI

@@ -290,7 +290,7 @@ class plate(Messenger):
                 "use HMCECS instead."
             )
         # random.choice without replacement via top-k on uniform keys:
-        # O(size) fused, TPU-friendly (no Fisher-Yates serial swaps)
+        # O(size) fused, accelerator-friendly (no Fisher-Yates serial swaps)
         u = random.uniform(rng_key, (size,))
         _, idx = lax.top_k(u, subsample_size)
         return idx

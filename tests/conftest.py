@@ -1,6 +1,6 @@
 """Test configuration — mirrors the reference strategy (test/conftest.py):
 force CPU with 8 virtual devices (so multi-device sharding paths are
-exercised without TPU hardware), fixed seeds per test.
+exercised without accelerator hardware), fixed seeds per test.
 
 NB: pytest plugins (flax/chex) may import jax before this file runs, so the
 env vars alone are not enough — we also set the config keys, which work any

@@ -1,8 +1,8 @@
 """Memory-mode matrix for HMCECS: panel modes (carry / bf16 / lean) and
 taylor_proxy stats modes (stats / recompute) must all sample the same
-posterior.  The lean+recompute combination is the 4096-chain-on-one-chip
-configuration (no per-chain data or statistics panels at all); carry+stats
-is the round-4 default.  Reference memory profile being reproduced by
+posterior.  The lean+recompute combination carries no per-chain data or
+statistics panels at all; carry+stats is what "auto" resolves to at small
+scale.  Reference memory profile being reproduced by
 "lean": numpyro/infer/hmc_gibbs.py:690-769 (re-gather per evaluation).
 """
 
@@ -115,3 +115,35 @@ def test_recompute_and_stats_estimators_agree_pointwise():
 def test_auto_resolves_carry_at_small_scale():
     _, _, kernel = _run("auto", "auto", num_chains=2)
     assert kernel._panel_mode_resolved == "carry"
+    assert kernel._proxy_mode_resolved == "stats"
+
+
+class _FakeAccelerator:
+    platform = "gpu"
+    device_kind = "Fake accelerator"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize(
+    "stats, expect",
+    [(None, None), ({}, None), ({"bytes_limit": 8e10}, 8e10)],
+)
+def test_device_budget_from_memory_stats(monkeypatch, stats, expect):
+    """An accelerator's budget is its reported memory limit; one that
+    reports none raises an error naming the explicit mode arguments
+    instead of assuming a size."""
+    import jax
+
+    from numpyro_tpu.contrib import ecs_proxies
+
+    monkeypatch.setattr(jax, "devices", lambda: [_FakeAccelerator(stats)])
+    if expect is None:
+        with pytest.raises(RuntimeError, match="mode=.*panel_mode="):
+            ecs_proxies._device_hbm_bytes()
+    else:
+        assert ecs_proxies._device_hbm_bytes() == expect

@@ -58,7 +58,7 @@ np.testing.assert_allclose(np.asarray(pooled), expected, rtol=1e-6)
 
 # ---- sharded-data log-density reduction -----------------------------------
 # the data axis lives within each process (mesh columns), so every process
-# holds a full replica; the reduction stays on ICI in a real pod slice
+# holds a full replica; the reduction stays on the device interconnect in a real multi-host run
 data = jax.make_array_from_process_local_data(
     NamedSharding(mesh, P("data")), np.arange(50, dtype=np.float32)
 )

@@ -1,5 +1,5 @@
 """Checkpoint/resume tests (in-memory resume parity: reference
-infer/mcmc.py:549-578; file round-trip is new TPU-native surface)."""
+infer/mcmc.py:549-578; file round-trip is new accelerator-native surface)."""
 
 import os
 import tempfile

@@ -1,5 +1,5 @@
 """Exact-density and moment checks for the structured/matrix/time-series
-families (the checks used to validate the TPU-first rewrites, promoted into
+families (the checks used to validate the accelerator-first rewrites, promoted into
 the suite): MVN/MVT/low-rank against scipy, matrix normal against its vec-MVN
 identity, Wishart-Cholesky against scipy.wishart with the exact Jacobian,
 circulant/state-space/Euler-Maruyama against manual densities, CAR against
